@@ -1,11 +1,12 @@
-"""gridmap_slam_tpu — a TPU-native 2D LiDAR SLAM engine.
+"""gridmap_slam_tpu — a JAX 2D LiDAR SLAM engine for GPUs.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of
+A JAX/XLA implementation of the capabilities of
 `antbern/gridmap-slam-robot` (Rao-Blackwellized particle-filter SLAM over
-log-odds occupancy grids), redesigned TPU-first: particles vmapped per chip
-and sharded over device meshes, dense gather-based map updates, correlative
-scan matching, and collective-based resampling.  See SURVEY.md for the
-reference analysis and README.md for the architecture.
+log-odds occupancy grids), redesigned for data-parallel accelerators:
+particles vmapped per device and sharded over device meshes, dense
+gather-based map updates, correlative scan matching, and collective-based
+resampling.  See SURVEY.md for the reference analysis and README.md for the
+architecture.
 """
 
 from .config import (MapConfig, MatcherConfig, MotionConfig, RobotConfig,

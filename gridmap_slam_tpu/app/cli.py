@@ -1,9 +1,11 @@
 """Command-line application: replay, live SLAM, synthetic data generation.
 
-The TPU-side equivalent of the reference's desktop app shell (core/Main2 +
-app/GridMapApp): wires a data source (recording, synthetic world, or live
-robot link) into the SLAM engine and emits maps/trajectories/metrics —
-headless PNG + JSON instead of an OpenGL window.
+The accelerator-side equivalent of the reference's desktop app shell
+(core/Main2 + app/GridMapApp): wires a data source (recording, synthetic
+world, or live robot link) into the SLAM engine and emits
+maps/trajectories/metrics — .npy + JSON, plus PNG renders when matplotlib
+is installed, instead of an OpenGL window.  The engine runs on whatever
+platform JAX picks (JAX_PLATFORMS); the CLI never switches it.
 
 Usage:
   python -m gridmap_slam_tpu.app.cli replay --log maps/rec1 --out out/
@@ -20,6 +22,18 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+
+def _render(name: str, path, data, **kwargs) -> None:
+    """Write a PNG with utils.viz.<name>(data, path, **kwargs), or say on
+    stderr that it was skipped when matplotlib is not installed."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"matplotlib not installed: skipped {path}", file=sys.stderr)
+        return
+    from ..utils import viz
+    getattr(viz, name)(data, path, **kwargs)
 
 
 class _MeshEngine:
@@ -141,6 +155,10 @@ def _run_frames(cfg, eng, state, frames, out_dir: Path, gt=None,
         "frames": len(frames),
         "mean_scan_ms": timer.mean_ms,
         "scans_per_sec": timer.scans_per_sec(),
+        # the first scan includes compilation; the rest are steady state
+        "first_scan_s": timer.times[0] if timer.times else None,
+        "steady_scan_ms": (1e3 * float(np.median(timer.times[1:]))
+                           if len(timer.times) > 1 else None),
         "final_neff": neffs[-1] if neffs else None,
         "final_pose": traj[-1].tolist() if len(traj) else None,
     }
@@ -170,9 +188,8 @@ def _dump_maps(cfg, eng, state, out_dir: Path, label: str, traj, gt,
                scan=None, raw_pose=None):
     """Final map artifact(s) — the reference's map-type (occupancy /
     likelihood) and map-select (strongest / combined) views
-    (app/GridMapApp.java:246-320)."""
-    from ..utils.viz import render_likelihood, render_map
-
+    (app/GridMapApp.java:246-320): the selected log-odds map as .npy, and
+    as PNG when matplotlib is installed."""
     if map_select == "combined" and hasattr(eng, "combined_occupancy"):
         p = np.asarray(eng.combined_occupancy(state))
         m = np.log(np.clip(p, 1e-6, 1 - 1e-6) /
@@ -194,20 +211,20 @@ def _dump_maps(cfg, eng, state, out_dir: Path, label: str, traj, gt,
         m = np.asarray(state.logodds[i])
     else:
         m = np.asarray(eng.best_map(state))
-    render_map(m, out_dir / f"{label}_map.png", trajectory=traj,
-               ground_truth=gt, particles=np.asarray(state.poses),
-               origin=cfg.map.origin, resolution=cfg.map.resolution,
-               title=f"{label}: {len(traj)} scans ({map_select})",
-               scan=scan, scan_pose=traj[-1] if len(traj) else None,
-               raw_pose=raw_pose)
+    np.save(out_dir / f"{label}_map.npy", m)
+    _render("render_map", out_dir / f"{label}_map.png", m, trajectory=traj,
+            ground_truth=gt, particles=np.asarray(state.poses),
+            origin=cfg.map.origin, resolution=cfg.map.resolution,
+            title=f"{label}: {len(traj)} scans ({map_select})",
+            scan=scan, scan_pose=traj[-1] if len(traj) else None,
+            raw_pose=raw_pose)
     if map_view == "likelihood":
         import jax.numpy as jnp
         from ..ops.grid import likelihood_field
         field, _ = likelihood_field(jnp.asarray(m), eng.kernel)
-        render_likelihood(np.asarray(field),
-                          out_dir / f"{label}_likelihood.png",
-                          origin=cfg.map.origin,
-                          resolution=cfg.map.resolution)
+        _render("render_likelihood", out_dir / f"{label}_likelihood.png",
+                np.asarray(field), origin=cfg.map.origin,
+                resolution=cfg.map.resolution)
 
 
 def _make_view(args, cfg):
@@ -348,13 +365,12 @@ def cmd_live(args):
     # final artifacts (map PNG, metrics) for the session just run
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    from ..utils.viz import render_map
     tr = app.trajectory_array()
     np.save(out_dir / "live_trajectory.npy", tr)
-    render_map(app.occupancy(), out_dir / "live_map.png",
-               trajectory=tr, particles=np.asarray(app.state.poses),
-               origin=cfg.map.origin, resolution=cfg.map.resolution,
-               title=f"live: {len(collected)} scans")
+    _render("render_map", out_dir / "live_map.png", app.occupancy(),
+            trajectory=tr, particles=np.asarray(app.state.poses),
+            origin=cfg.map.origin, resolution=cfg.map.resolution,
+            title=f"live: {len(collected)} scans")
     print(json.dumps({"frames": len(collected),
                       "final_pose": tr[-1].tolist() if len(tr) else None}))
 
@@ -368,7 +384,6 @@ def cmd_posegraph(args):
                                 square_path_controls)
     from ..models.frontend import FrontendConfig, PoseGraphSLAM
     from ..ops.geometry import deskew_scan
-    from ..utils.viz import render_map
 
     if args.log:
         frames = read_recording(args.log)
@@ -391,11 +406,12 @@ def cmd_posegraph(args):
     n_closures = fe.detect_closures()
     opt, chi2 = fe.optimize()
     rebuilt = fe.rebuild_map()
-    render_map(np.asarray(rebuilt), out_dir / "pg_optimized_map.png",
-               trajectory=opt, ground_truth=gt, origin=cfg.map.origin,
-               resolution=cfg.map.resolution,
-               title=f"pose-graph: {fe.num_keyframes} keyframes, "
-                     f"{n_closures} closures")
+    np.save(out_dir / "pg_optimized_map.npy", np.asarray(rebuilt))
+    _render("render_map", out_dir / "pg_optimized_map.png",
+            np.asarray(rebuilt), trajectory=opt, ground_truth=gt,
+            origin=cfg.map.origin, resolution=cfg.map.resolution,
+            title=f"pose-graph: {fe.num_keyframes} keyframes, "
+                  f"{n_closures} closures")
     summary = {"keyframes": fe.num_keyframes, "closures": n_closures,
                "chi2_first": float(chi2[0]), "chi2_last": float(chi2[-1])}
     if gt is not None:
@@ -517,6 +533,8 @@ def main(argv=None):
             ap.error("--map-select <index> requires --engine rbpf "
                      "(per-particle maps); shared/surface engines keep one "
                      "shared map")
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

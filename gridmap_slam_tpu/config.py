@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native 2D LiDAR SLAM engine.
+"""Typed configuration for the JAX 2D LiDAR SLAM engine.
 
 Every numeric constant of the reference implementation is collected here as an
 overridable, typed default (the reference hard-codes them; see SURVEY.md §5
@@ -100,9 +100,8 @@ class MapConfig:
     # field, a heading between two theta bins displaces endpoints by
     # range * dtheta/2 >> sigma, so per-particle surface scores are
     # dominated by bin-alignment luck rather than mode identity and the
-    # posterior's mode masses random-walk (round-5 P-sweep finding,
-    # docs/bench/psweep_r5.json).  Classic MCL uses sigma ~0.2-0.5 m for
-    # exactly this reason.
+    # posterior's mode masses random-walk (scripts/psweep_r5.py).  Classic
+    # MCL uses sigma ~0.2-0.5 m for exactly this reason.
     likelihood_sigma_cells: float = 0.0
 
     @property
@@ -120,7 +119,7 @@ class MapConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MatcherConfig:
-    """Correlative scan matcher (TPU-native replacement for the reference's
+    """Correlative scan matcher (data-parallel replacement for the reference's
     BOBYQA local optimizer, slam/GridMap.java:348-369; search window follows the
     brute-force variant at slam/GridMap.java:324-325).
 
@@ -144,53 +143,39 @@ class MatcherConfig:
     # Coarse-stage cost controls: score every `stride`-th beam and/or use
     # nearest-cell lookups in the COARSE grid only (refine stages always
     # rescore all beams bilinearly).  Defaults measured ATE-neutral on the
-    # canonical datasets (docs/ate_parity_*) while cutting the matcher's
-    # dominant gather traffic ~16x in the coarse stage; set stride 1 +
-    # coarse_nearest=False for the exhaustive search.
+    # canonical datasets (docs/ate_parity_*) while cutting the coarse
+    # stage's lookups ~16x; set stride 1 + coarse_nearest=False for the
+    # exhaustive search.
     coarse_beam_stride: int = 4
     coarse_nearest: bool = True
     # Run the coarse basin-finding stage on a 2x2-mean-pooled
-    # HALF-RESOLUTION field with bilinear taps (all dense backends:
-    # pallas / matmul / gather; the splat backend AND the tiled engine
-    # (parallel/tiled.py) ignore it — tiled scores its coarse stage at
-    # full resolution, so default configs are trajectory-equivalent but
-    # not schedule-identical across those engines).  ~4x less
-    # coarse-stage work; the fine stages rescore at full resolution, so
-    # only basin SELECTION can differ.  Measured TRAJECTORY-IDENTICAL
-    # (same ATE and per-scan Neff) on all three canonical datasets and
-    # the parity bench, at 60.7 -> 83.3 scans/s on the Pallas path
-    # (docs/bench/halfres_ate_r4.json) — hence on by default.
+    # HALF-RESOLUTION field with bilinear taps (dense backends matmul /
+    # gather; the splat backend AND the tiled engine (parallel/tiled.py)
+    # ignore it — tiled scores its coarse stage at full resolution, so
+    # default configs are trajectory-equivalent but not schedule-identical
+    # across those engines).  ~4x less coarse-stage work; the fine stages
+    # rescore at full resolution, so only basin SELECTION can differ.
+    # Measured TRAJECTORY-IDENTICAL (same ATE and per-scan Neff) on all
+    # three canonical datasets — hence on by default.
     coarse_halfres: bool = True
     # Scoring implementation:
-    #   "gather" — batched bilinear lookups (random access; ~0.3 GB/s
-    #     effective on TPU, docs/TPU_FAULT.md);
+    #   "gather" — batched bilinear lookups (random access);
     #   "splat"  — bilinearly-splatted endpoint images + statically shifted
     #     dense frame dots (identical scores, tests/test_matcher_splat.py);
-    #   "matmul" — bilinear lookups as two-tap one-hot MXU contractions
+    #   "matmul" — bilinear lookups as two-tap one-hot matrix contractions
     #     (ops/matcher_matmul.py): same candidate schedule AND scores as
     #     "gather" (tests/test_matcher_matmul.py), no gathers, no dense
-    #     frame dots — the fastest pure-XLA TPU path;
-    #   "pallas" — VMEM-resident Pallas stage-scoring kernel
-    #     (ops/pallas/matcher.py): same schedule/scores up to f32 summation
-    #     order, zero HBM intermediates.  Requires map width <= 124 cells
-    #     and a real TPU (tests cover it in interpret mode);
-    #   "auto"   — on a real TPU: the Pallas kernel when the map fits
-    #     (<= 124 cells wide; the DEFAULT fast path since round 5 —
-    #     silicon-validated at 83.9 scans/s on the parity preset), matmul
-    #     otherwise; gather on CPU (caches make random lookups cheap; the
-    #     one-hot matmuls are a loss there).  GRIDMAP_PALLAS=0 disables
-    #     the Pallas resolution (escape hatch; portable path is identical
-    #     in schedule and scores).
+    #     frame dots;
+    #   "auto"   — "gather".
     impl: str = "auto"
-    # matmul backend in bf16 (f32 accumulate, range-centered field): ~3-6x
-    # MXU speedup on v5e vs f32 passes, at ~0.1-0.2 log-score quantization
-    # noise (ATE-neutral on the canonical datasets, tests/
-    # test_matcher_matmul.py::test_matmul_bf16_close).  False = bit-clean
-    # scores identical to the gather backend.
+    # matmul backend in bf16 (f32 accumulate, range-centered field), at
+    # ~0.1-0.2 log-score quantization noise (ATE-neutral on the canonical
+    # datasets, tests/test_matcher_matmul.py::test_matmul_bf16_close).
+    # False = bit-clean scores identical to the gather backend.
     matmul_bf16: bool = True
     # Surface mode (SharedMapSLAM.step_surface, ops/surface.py): precompute
     # the measurement likelihood over (theta bins x all cells) once per scan
-    # — one MXU correlation, cost independent of particle count — then
+    # — one correlation, cost independent of particle count — then
     # weight every particle with ~8 trilinear taps.  The mode for 1M+
     # particles (BASELINE config 3).
     surface_nt: int = 25                  # theta bins
@@ -205,23 +190,21 @@ class MatcherConfig:
     # factor before normalization.  Raw per-scan log-likelihoods are sums
     # over ~180 beams; their spread across a sampled cloud is tens of
     # nats, so exp() degenerates (Neff ~0.5 % of P at 1M) and the filter
-    # resamples EVERY scan — ~30 % of the 1M step (docs/bench/
-    # ROOFLINE.md).  0.0 (default) = AUTO: 1/sqrt(n_valid_hit_beams)
+    # resamples EVERY scan.  0.0 (default) = AUTO: 1/sqrt(n_valid_hit_beams)
     # per scan (~0.075 at 180 beams); 1.0 = reference semantics (raw
-    # product, slam/SLAM.java:99).  Evidence (docs/bench/
-    # temp_study_r5.json + temp_study2_r5.json): at 1M particles
-    # auto-temp with the 0.15 gate below is strictly better than
-    # untempered (ATE 0.0353 vs 0.0372, 30 vs 50 ms/scan); at 100k it
-    # trades ~1 cm ATE on the canonical logs for half the resamples.
+    # product, slam/SLAM.java:99).  Studies: scripts/temp_study_r5.py and
+    # temp_study2_r5.py — at 1M particles auto-temp with the 0.15 gate
+    # below gave a lower ATE than untempered weights; at 100k it trades
+    # ~1 cm ATE on the canonical logs for half the resamples.
     surface_weight_temp: float = 0.0
     # Surface-mode resample gate: resample when
     # Neff < surface_resample_fraction * P (the RBPF paths keep the
     # reference's 0.5 via SlamConfig.resample_fraction,
     # app/GridMapApp.java:185).  With tempered weights Neff sits at
-    # 20-30 % of P while tracking, so 0.15 makes the 22 ms @1M resample
-    # occasional instead of per-scan; study artifacts above.
+    # 20-30 % of P while tracking, so 0.15 makes the 1M-particle resample
+    # occasional instead of per-scan.
     surface_resample_fraction: float = 0.15
-    # Volume correlation at MXU-native bf16 (f32 accumulate, exact shift
+    # Volume correlation in bf16 (f32 accumulate, exact shift
     # mass subtracted; ops/surface.scan_surface).  OFF by default: surface
     # mode weights particles by RAW volume samples (no per-particle
     # refinement to absorb noise), and the ~0.1-0.2 log-score quantization
@@ -296,10 +279,6 @@ class SlamConfig:
     # Dense correlative update: treat beams as rays of ~1 cell width
     # (emulates the reference's per-beam DDA cell set, slam/RayIterator.java).
     dtype: str = "float32"
-    # Pallas kernels for the fused LL-field build and map update:
-    # "auto" = use on TPU when the map shape is tile-aligned (H%8, W%128) and
-    # beam_lut_bins % H == 0; "on" / "off" force.
-    use_pallas: str = "auto"
 
     def replace(self, **kw) -> "SlamConfig":
         return dataclasses.replace(self, **kw)

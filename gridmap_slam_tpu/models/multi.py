@@ -20,7 +20,6 @@ from typing import Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..ops.geometry import deskew_scan
@@ -29,10 +28,10 @@ from ..ops.matcher import correlative_match, log_likelihood_field
 from ..ops.motion import apply_odometry, sample_motion
 from ..ops.raycast import build_beam_lut, integrate_scan
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
-from ..types import Frame
+from ..types import Frame, pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class MultiRobotState:
     """poses: (R, P, 3); log_weights: (R, P); logodds: (H, W) shared."""
 
@@ -43,7 +42,7 @@ class MultiRobotState:
     step: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class MultiStepInfo:
     neff: jax.Array            # (R,)
     weighted_pose: jax.Array   # (R, 3)

@@ -4,7 +4,7 @@ The reference has no pose-graph/loop-closure capability — this is the
 capability extension required by the north star (BASELINE.json: "pose-graph
 backend with loop closure refined by sparse bundle adjustment").
 
-TPU design: residuals and Jacobians for all constraints are computed in one
+Design: residuals and Jacobians for all constraints are computed in one
 vmapped batch; the normal equations are assembled with scatter-adds into block
 structure and solved densely (Cholesky) — appropriate for up to a few thousand
 keyframes on one chip.  Edges are fixed-width (padded with zero-information
@@ -13,7 +13,7 @@ verified with the same correlative matcher used for scan-to-map alignment,
 scoring a scan against a local grid built from the paired keyframe's scan.
 
 The distributed Schur-complement path (multi-host BA over psum collectives)
-builds on `gauss_newton_step`'s H/b assembly; see parallel/.
+builds on `normal_equations`; see parallel/ba.py.
 """
 
 from __future__ import annotations
@@ -24,12 +24,12 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..ops.geometry import wrap_angle
+from ..types import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class PoseGraph:
     """nodes: (K, 3) SE(2) poses; edges i->j with relative measurements.
 
@@ -95,41 +95,49 @@ def residuals_and_jacobians(nodes, edge_i, edge_j, edge_z):
     return e, ji, jj
 
 
-def gauss_newton_step(graph: PoseGraph, damping: float = 1e-6,
-                      anchor_w: float = 1e6):
-    """One damped Gauss-Newton update of all node poses.
-
-    Assembles the dense normal equations H dx = -b from all edges with
-    scatter-adds and solves by Cholesky; node 0 is anchored with a strong
-    prior (gauge fixing).  Returns (new_graph, chi2).
-    """
-    nodes = graph.nodes
+def normal_equations(nodes, edge_i, edge_j, edge_z, edge_w):
+    """Dense Gauss-Newton normal equations of an edge set: (H (3K, 3K),
+    b (3K,), chi2), assembled with scatter-adds.  The per-edge products run
+    at HIGHEST precision: at DEFAULT an accelerator may round f32 matmul
+    inputs to bf16 or TF32.  parallel/ba.py psums these over edge shards."""
     k = nodes.shape[0]
-    e, ji, jj = residuals_and_jacobians(nodes, graph.edge_i, graph.edge_j,
-                                        graph.edge_z)
-    w = graph.edge_w                                   # (E, 3)
+    e, ji, jj = residuals_and_jacobians(nodes, edge_i, edge_j, edge_z)
+    w = edge_w                                         # (E, 3)
     chi2 = jnp.sum(w * e * e)
 
     wji = w[:, :, None] * ji                           # (E, 3, 3) row-scaled
     wjj = w[:, :, None] * jj
-    h_ii = jnp.einsum("eab,eac->ebc", ji, wji)
-    h_jj = jnp.einsum("eab,eac->ebc", jj, wjj)
-    h_ij = jnp.einsum("eab,eac->ebc", ji, wjj)
-    b_i = jnp.einsum("eab,ea->eb", ji, w * e)
-    b_j = jnp.einsum("eab,ea->eb", jj, w * e)
+    hp = jax.lax.Precision.HIGHEST
+    h_ii = jnp.einsum("eab,eac->ebc", ji, wji, precision=hp)
+    h_jj = jnp.einsum("eab,eac->ebc", jj, wjj, precision=hp)
+    h_ij = jnp.einsum("eab,eac->ebc", ji, wjj, precision=hp)
+    b_i = jnp.einsum("eab,ea->eb", ji, w * e, precision=hp)
+    b_j = jnp.einsum("eab,ea->eb", jj, w * e, precision=hp)
 
     hb = jnp.zeros((k, k, 3, 3), nodes.dtype)
-    hb = hb.at[graph.edge_i, graph.edge_i].add(h_ii)
-    hb = hb.at[graph.edge_j, graph.edge_j].add(h_jj)
-    hb = hb.at[graph.edge_i, graph.edge_j].add(h_ij)
-    hb = hb.at[graph.edge_j, graph.edge_i].add(
-        jnp.swapaxes(h_ij, -1, -2))
+    hb = hb.at[edge_i, edge_i].add(h_ii)
+    hb = hb.at[edge_j, edge_j].add(h_jj)
+    hb = hb.at[edge_i, edge_j].add(h_ij)
+    hb = hb.at[edge_j, edge_i].add(jnp.swapaxes(h_ij, -1, -2))
     b = jnp.zeros((k, 3), nodes.dtype)
-    b = b.at[graph.edge_i].add(b_i)
-    b = b.at[graph.edge_j].add(b_j)
+    b = b.at[edge_i].add(b_i)
+    b = b.at[edge_j].add(b_j)
+    return hb.transpose(0, 2, 1, 3).reshape(3 * k, 3 * k), b.reshape(3 * k), \
+        chi2
 
-    h = hb.transpose(0, 2, 1, 3).reshape(3 * k, 3 * k)
-    b = b.reshape(3 * k)
+
+def gauss_newton_step(graph: PoseGraph, damping: float = 1e-6,
+                      anchor_w: float = 1e6):
+    """One damped Gauss-Newton update of all node poses.
+
+    Assembles the dense normal equations H dx = -b from all edges and
+    solves by Cholesky; node 0 is anchored with a strong prior (gauge
+    fixing).  Returns (new_graph, chi2).
+    """
+    nodes = graph.nodes
+    k = nodes.shape[0]
+    h, b, chi2 = normal_equations(nodes, graph.edge_i, graph.edge_j,
+                                  graph.edge_z, graph.edge_w)
     # gauge anchor on node 0 + Levenberg damping
     diag = jnp.concatenate([jnp.full((3,), anchor_w, nodes.dtype),
                             jnp.full((3 * (k - 1),), damping, nodes.dtype)])
@@ -145,11 +153,10 @@ def optimize(graph: PoseGraph, iterations: int = 10,
              damping: float = 1e-6) -> Tuple[PoseGraph, jax.Array]:
     """Run fixed-iteration Gauss-Newton (jittable; lax.scan over iters).
 
-    Matmul precision is pinned to f32: on TPU, DEFAULT precision truncates
-    f32 matmul/solve inputs to bf16 (round-3 hardware finding), and at a
-    couple hundred nodes the bf16-assembled normal equations lose positive
-    definiteness — Cholesky then yields NaN chi2 (observed on the 216-
-    keyframe grand-tour graph; CPU was always fine)."""
+    Matmul precision is pinned to f32: at DEFAULT precision an accelerator
+    may run f32 matmuls with reduced-precision inputs (bf16 or TF32), and
+    at a couple hundred nodes normal equations assembled that way can lose
+    positive definiteness — Cholesky then yields NaN chi2."""
 
     def body(g, _):
         g, chi2 = gauss_newton_step(g, damping)

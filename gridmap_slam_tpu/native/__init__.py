@@ -17,7 +17,13 @@ _lib = None
 
 
 def _build() -> None:
-    subprocess.run(["make", "-C", _DIR], check=True, capture_output=True)
+    """Compile protocol.cc with make into a private file, then rename it
+    into place: concurrent first users (test workers) never load a
+    half-written library."""
+    tmp = f"{_LIB_PATH}.tmp{os.getpid()}"
+    subprocess.run(["make", "-C", _DIR, "-B", f"TARGET={tmp}"], check=True,
+                   capture_output=True)
+    os.replace(tmp, _LIB_PATH)
 
 
 def load():

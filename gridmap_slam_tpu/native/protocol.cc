@@ -3,7 +3,7 @@
 // The reference's native layer is its firmware: the ESP32 streams packed
 // measurement frames over TCP (robot/esp32/sensor.cpp:11-15, :182-209) and
 // the Java side parses them on a reader thread (conn/ConnectionThread.java:
-// 41-102).  This library reimplements that native behavior for the TPU
+// 41-102).  This library reimplements that native behavior for the
 // engine's host side:
 //
 //   * encode/decode of the measurement wire format

@@ -4,10 +4,10 @@ Reference behavior: app/Util.java:31-58 (logOdds/invLogOdds),
 slam/GridMap.java:233-250 (threshold + separable Gaussian blur),
 app/Util.java:378-474 (separable blur with zero boundary, kernel generator).
 
-TPU design: the blur is a pair of 1-D convolutions expressed as unrolled
+Design: the blur is a pair of 1-D convolutions expressed as unrolled
 shift-multiply-adds over a zero-padded array — XLA fuses the whole likelihood
-field build (threshold + two blur passes) into a few vectorized HBM passes,
-and it batches cleanly under vmap over particles.
+field build (threshold + two blur passes) into a few vectorized memory
+passes, and it batches cleanly under vmap over particles.
 """
 
 from __future__ import annotations

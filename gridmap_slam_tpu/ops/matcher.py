@@ -5,7 +5,7 @@ particle's pose with a BOBYQA derivative-free optimizer (<=500 sequential
 objective evaluations of p(z|x,m) * p(x|x0,u)); its older brute-force variant
 searched a +/-0.20 m, +/-15 deg window.
 
-TPU design: a multi-stage dense correlative search (coarse grid over the full
+Design: a multi-stage dense correlative search (coarse grid over the full
 window, then halving refinement grids around the running argmax).  All
 candidate poses for all beams are scored in batched gathers from the
 likelihood field plus a log-sum reduction — no data-dependent control flow,
@@ -174,6 +174,18 @@ def score_pose(llfield, scan: Scan, pose, *, z_hit, resolution, origin,
     return meas.reshape(())
 
 
+MATCHER_IMPLS = ("auto", "gather", "splat", "matmul")
+
+
+def resolve_impl(impl: str) -> str:
+    """The scoring backend `matcher.impl` selects ("auto" is "gather";
+    choosing among the backends by measurement is open work)."""
+    if impl not in MATCHER_IMPLS:
+        raise ValueError(f"matcher.impl must be one of {MATCHER_IMPLS}; "
+                         f"got {impl!r}")
+    return "gather" if impl == "auto" else impl
+
+
 def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
                       matcher_cfg, motion_cfg, resolution, origin, max_range,
                       prior_center=None):
@@ -195,15 +207,7 @@ def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
     p(z|x,m) alone as the particle weight (slam/SLAM.java:99).
     """
     mc = matcher_cfg
-    impl = getattr(mc, "impl", "gather")
-    if impl in ("auto", "pallas"):
-        # The Pallas stage kernel is only reachable through RBPF's batched
-        # driver (ops/pallas/matcher.correlative_match_pallas_batch); in
-        # every other engine 'pallas' means "fastest dense backend here" —
-        # matmul on TPU, gather on CPU (round-4 ADVICE: it used to fall
-        # through to the slowest gather path silently).
-        import jax as _jax
-        impl = "matmul" if _jax.default_backend() == "tpu" else "gather"
+    impl = resolve_impl(mc.impl)
     if impl == "splat":
         from .matcher_splat import correlative_match_splat
         return correlative_match_splat(
@@ -215,8 +219,8 @@ def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
 
     if impl == "matmul":
         # Same candidate schedule + scores as the gather path below, with
-        # every stage's lookups computed as MXU contractions instead of
-        # random gathers (ops/matcher_matmul.py).
+        # every stage's lookups computed as one-hot matrix contractions
+        # instead of random gathers (ops/matcher_matmul.py).
         from .matcher_matmul import pad_llfield, stage_scores_matmul
         _pad = 2
         ll_outside = math.log(1.0 / max_range)
@@ -239,9 +243,7 @@ def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
     # Half-resolution coarse basin stage (matcher_cfg.coarse_halfres): the
     # coarse grid only selects the basin the fine stages rescore at full
     # resolution, so it can run on a 2x2-mean-pooled field — ~4x less
-    # coarse work in every dense backend.  Measured trajectory-identical
-    # on the canonical datasets (docs/bench/halfres_ate_r4.json; the
-    # Pallas batch driver does the same).
+    # coarse work in every dense backend.
     coarse_stages = _stages
     if getattr(mc, "coarse_halfres", False) and impl != "splat":
         ll_out_v = math.log(1.0 / max_range)

@@ -1,4 +1,4 @@
-"""Matmul scan-matcher stage scorer: bilinear lookups as MXU contractions.
+"""Matmul scan-matcher stage scorer: bilinear lookups as matrix contractions.
 
 Third scoring backend for ops/matcher.correlative_match (impl="matmul"),
 producing EXACTLY the gather backend's stage-score tensor (same candidate
@@ -13,13 +13,13 @@ stage grid of (ny x nx) translation offsets and B beams, all lookups become
     G[oy, b, :] = A_y[oy, b, :] @ F_pad          # ((ny*B), Hp) x (Hp, Wp)
     S[oy, ox]   = sum_{b,w} G[oy, b, w] * A_x[ox, b, w]   # (ny, B*Wp) x ...
 
-— two MXU contractions per theta instead of ny*nx*B*4 random gathers.  TPU
-random gathers run at ~0.3 GB/s effective (docs/TPU_FAULT.md); these
-matmuls stream at MXU rates and carry no per-dispatch gather volume, so the
-dev chip's fault budget does not apply.  Versus the splat backend
+— two contractions per theta instead of ny*nx*B*4 random gathers, for
+devices whose random gathers are slow next to their matrix units.  The
+one-hot operands inflate the arithmetic well beyond the lookups they
+replace, so whether this beats the gather backend is a question for
+measurement on each device.  Versus the splat backend
 (ops/matcher_splat.py) this scores only the (ny*B*Hp) taps that exist
-instead of dense frame dots over a >=99%-zero endpoint image — the round-2
-VERDICT's matcher-efficiency item.
+instead of dense frame dots over a >=99%-zero endpoint image.
 
 Out-of-map semantics match the gather backend exactly: the field is padded
 with a constant ll_outside band (>= 2 cells) and tap indices clamp into the
@@ -72,13 +72,11 @@ def stage_scores_matmul(fpad, px, py, wgt, pose0, dxs, dys, dts, *,
     hit&valid mask as floats.
 
     Every (theta, dy) candidate row shares this particle's field, so ALL of
-    them fold into the M dimension of ONE (nt*ny*B, Hp) x (Hp, Wp) GEMM —
-    a per-theta loop would issue nt tiny batched GEMMs whose MXU pipeline
-    overhead dominates (measured: ~3% FLOP efficiency at 500 particles).
-    The final contraction over (b, w) has tiny ny/nx output dims — an MXU
-    matmul would pad M=N=ny to full tiles (~200x wasted FLOPs at ny=nx=9),
-    so it stays on the VPU as a broadcast-multiply-reduce, which XLA fuses
-    into the reduction without materializing the product."""
+    them fold into the M dimension of ONE (nt*ny*B, Hp) x (Hp, Wp) GEMM
+    instead of nt tiny batched GEMMs.  The final contraction over (b, w)
+    has tiny ny/nx output dims, which a matrix unit would pad to full tiles,
+    so it stays a broadcast-multiply-reduce, which XLA fuses into the
+    reduction without materializing the product."""
     hp, wp = fpad.shape[-2], fpad.shape[-1]
     dtype = fpad.dtype
     inv_res = 1.0 / resolution
@@ -94,7 +92,7 @@ def stage_scores_matmul(fpad, px, py, wgt, pose0, dxs, dys, dts, *,
     a_y = _taps(fys, hp, nearest, dtype) * wgt[None, None, :, None]
     a_x = _taps(fxs, wp, nearest, dtype)                      # (nt, nx, B, wp)
     if bf16:
-        # v5e MXU is native bf16 (f32 matmuls cost 3-6 passes).  Center the
+        # bf16 operands, f32 accumulation.  Center the
         # field's range around zero first (f_shift) so bf16's 8-bit
         # mantissa lands on the small values; since each beam's bilinear
         # tap weights sum to exactly 1, the shift adds exactly
@@ -106,10 +104,9 @@ def stage_scores_matmul(fpad, px, py, wgt, pose0, dxs, dys, dts, *,
             (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32).reshape(a_y.shape[:-1] + (wp,))
         # Store the two big intermediates at bf16 and upcast in-register for
-        # the final f32 reduction: the stage is HBM-traffic-bound (round-3
-        # ablation: coarse/fine/refine each ~10-14 ms at 500p, all the same
-        # materialize-one-hot + GEMM + contract pattern), so halving the
-        # g / a_x bytes is a direct win.  Quantization: one bf16 rounding
+        # the final f32 reduction: the stage moves more bytes than it
+        # computes, so halving the g / a_x bytes halves its traffic.
+        # Quantization: one bf16 rounding
         # of each stored value (|g| <~ 3 post-shift, |a_x| <= 1) — inside
         # this mode's documented 0.1-0.2 log-score noise.
         g16 = g.astype(jnp.bfloat16)
@@ -117,11 +114,10 @@ def stage_scores_matmul(fpad, px, py, wgt, pose0, dxs, dys, dts, *,
         s = jnp.sum(g16[:, :, None].astype(jnp.float32)
                     * ax16[:, None].astype(jnp.float32), axis=(-2, -1))
         return s - f_shift * jnp.sum(wgt)
-    # HIGHEST keeps this mode honestly f32 on TPU: at DEFAULT precision the
-    # MXU truncates f32 inputs to bf16 (tap weights AND field values),
-    # which is exactly what the dedicated bf16 mode above does — minus its
-    # range-centering.  True-f32 costs the documented 3-6 passes; the fast
-    # path is bf16=True (the config default).
+    # HIGHEST keeps this mode honestly f32: at DEFAULT precision a device
+    # may round f32 inputs (tap weights AND field values) to bf16 or TF32,
+    # which is what the dedicated bf16 mode above does — minus its
+    # range-centering.
     g = jnp.einsum("tybh,hw->tybw", a_y, fpad,
-                   precision=jax.lax.Precision.HIGHEST)       # one MXU GEMM
+                   precision=jax.lax.Precision.HIGHEST)       # one GEMM
     return jnp.sum(g[:, :, None] * a_x[:, None], axis=(-2, -1))

@@ -1,18 +1,17 @@
 """Splat-correlation scan matcher: the gather-free formulation.
 
 Mathematically IDENTICAL scores to ops/matcher.correlative_match's bilinear
-lookups, reorganized for TPU memory systems: random per-beam gathers run at
-~0.3 GB/s effective on TPU (docs/TPU_FAULT.md measurements), while this
+lookups, reorganized for devices whose random gathers are slow: this
 formulation touches memory only in streaming patterns:
 
     score(dt, dy, dx) = sum_b bilinear(llf)(p_b(dt) + (dx, dy))
                       = sum_{h,w} E_dt_frac[h, w] * llf_pad[h + dy_i, w + dx_i]
 
 where E is the scan's endpoint image, BILINEARLY SPLATTED (each endpoint
-contributes its 4 corner weights — built with one-hot einsums on the MXU,
-no scatter), the candidate offset's FRACTIONAL part is folded into the
+contributes its 4 corner weights — built with one-hot einsums, no
+scatter), the candidate offset's FRACTIONAL part is folded into the
 splat (so sub-cell refinement stays exact), and the integer offsets become
-statically shifted elementwise dot products (VPU streaming at HBM/VMEM
+statically shifted elementwise dot products (streaming at memory
 bandwidth).  Out-of-map lookups read a constant ll_outside border baked
 into the padded field, reproducing the gather path's clamping semantics
 for any endpoint within `pad` cells of the map; endpoints beyond that are
@@ -72,9 +71,10 @@ def _splat(px, py, wgt, theta, dx_frac, dy_frac, *, hp, wp, pad,
     a_x = (jnp.where(ix[None, :] == x0i[:, None], 1.0 - tx[:, None], 0.0)
            + jnp.where(ix[None, :] == x0i[:, None] + 1, tx[:, None], 0.0))
     a_y = a_y * wgt[:, None]
-    # E = sum_b outer(a_y[b], a_x[b])  — one (hp, B) x (B, wp) matmul (MXU).
-    # HIGHEST: TPU DEFAULT truncates the fractional tap weights to bf16,
-    # breaking this backend's exact-equality contract with the gather path.
+    # E = sum_b outer(a_y[b], a_x[b])  — one (hp, B) x (B, wp) matmul.
+    # HIGHEST: at DEFAULT precision a device may round the fractional tap
+    # weights to bf16 or TF32, breaking this backend's exact-equality
+    # contract with the gather path.
     return jax.lax.dot(a_y.T, a_x, precision=jax.lax.Precision.HIGHEST)
 
 

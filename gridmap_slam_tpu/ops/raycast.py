@@ -5,7 +5,7 @@ Reference behavior: slam/GridMap.java:173-228 walks a DDA ray per beam
 (slam/SensorModel.java:31-41) into each visited cell, with hitTolerance=2 cells
 and 2 extra wall-thickness steps past the endpoint.
 
-TPU design: instead of serial, data-dependent ray walks with scatter-adds (the
+Design: instead of serial, data-dependent ray walks with scatter-adds (the
 reference's hot loop #3, SURVEY.md §3.3), every grid cell computes its own
 update in parallel from the scan — a *gather* formulation:
 
@@ -20,7 +20,7 @@ update in parallel from the scan — a *gather* formulation:
      measured distance minus one cell, occupied within +/-1 cell of it
      (hit beams), nothing beyond.
 
-This is O(H*W) fully-vectorized VPU work per particle with two tiny gathers,
+This is O(H*W) fully-vectorized work per particle with two tiny gathers,
 no scatter, no data-dependent control flow — and map tiles update
 independently (a cell's update depends only on pose+scan), which removes the
 halo problem for sharded maps entirely.
@@ -80,23 +80,24 @@ def bearing_to_beam(lut, phi):
 _GEMM_CELLS_MAX = 1 << 18
 
 
-def _beam_values_for_cells(scan: Scan, lut, phi):
+def _beam_values_for_cells(scan: Scan, lut, phi, one_hot=None):
     """Per-cell (alpha, dist, hit, valid) of each cell's nearest beam.
 
     phi: (H, W) bearings in the robot frame.  The naive formulation is 5
-    random gathers per cell (lut + four scan fields) — at the measured
-    ~0.3 GB/s effective TPU random-gather rate this made map integration
-    the step's dominant cost (210 of 254 ms at 500 particles, round-3
-    component bench).  Instead the bin tables are built ONCE per scan
-    (2048 tiny gathers, particle-independent) and the per-cell table read
-    becomes a two-level one-hot contraction: bin = hi*LO + lo, so
+    random gathers per cell (lut + four scan fields).  Instead the bin
+    tables are built ONCE per scan (2048 tiny gathers, particle-independent)
+    and the per-cell table read becomes a two-level one-hot contraction:
+    bin = hi*LO + lo, so
 
         vals[c] = sum_lo OH_lo[c, lo] * (OH_hi @ T2)[c, lo, :]
 
-    with OH_hi: (cells, HI) one-hot on the MXU and the lo-reduction fused
-    on the VPU — zero per-cell gathers.  Above _GEMM_CELLS_MAX cells (huge
-    shared maps) it falls back to ONE packed per-cell gather of the
-    (n_bins, 4) table (4x fewer gather rows than the naive path).
+    with OH_hi: (cells, HI) one-hot in a matrix product and the
+    lo-reduction fused elementwise — zero per-cell gathers.  The other
+    branch is ONE packed per-cell gather of the (n_bins, 4) table (4x fewer
+    gather rows than the naive path); both give bit-identical values.
+    one_hot=None takes the contraction up to _GEMM_CELLS_MAX cells (huge
+    shared maps gather); True/False force a branch.  Which formulation is
+    faster on a given device is open to measurement.
     """
     n_bins = lut.shape[0]
     h, w = phi.shape
@@ -107,7 +108,9 @@ def _beam_values_for_cells(scan: Scan, lut, phi):
     b = jnp.clip(b.astype(jnp.int32), 0, n_bins - 1)
 
     hi_n = 64 if n_bins % 64 == 0 else 0
-    if hi_n and h * w <= _GEMM_CELLS_MAX:
+    if one_hot is None:
+        one_hot = h * w <= _GEMM_CELLS_MAX
+    if hi_n and one_hot:
         lo_n = n_bins // hi_n
         cells = h * w
         bf = b.reshape(cells)
@@ -116,18 +119,18 @@ def _beam_values_for_cells(scan: Scan, lut, phi):
         oh_hi = (jnp.arange(hi_n, dtype=jnp.int32)[None, :]
                  == hi[:, None]).astype(jnp.float32)          # (cells, HI)
         t2 = table.reshape(hi_n, lo_n * 4)
-        # TPU matmuls at DEFAULT precision truncate f32 inputs to bf16 —
-        # which would round the table's distances/angles and shift occupied
-        # bands by up to a cell (round-3 hardware finding).  The one-hot
-        # side is exact in bf16 (0/1), so one-sided HIGHEST keeps the
-        # selection BIT-EXACT at ~2 passes instead of 6.
+        # At DEFAULT precision a device may round f32 matmul inputs to
+        # bf16 or TF32 — which would round the table's distances/angles and
+        # shift occupied bands by up to a cell.  The one-hot side is exact
+        # in any format (0/1), so one-sided HIGHEST keeps the selection
+        # BIT-EXACT while letting the one-hot operand stay narrow.
         m2 = jax.lax.dot(
             oh_hi, t2,
             precision=(jax.lax.Precision.DEFAULT,
                        jax.lax.Precision.HIGHEST)).reshape(cells, lo_n, 4)
         oh_lo = (jnp.arange(lo_n, dtype=jnp.int32)[None, :]
                  == lo[:, None]).astype(jnp.float32)          # (cells, LO)
-        vals = jnp.sum(oh_lo[:, :, None] * m2, axis=1)        # fused VPU
+        vals = jnp.sum(oh_lo[:, :, None] * m2, axis=1)        # fused
         vals = vals.reshape(h, w, 4)
     else:
         vals = jnp.take(table, b, axis=0)                     # (H, W, 4)

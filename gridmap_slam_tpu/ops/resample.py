@@ -5,8 +5,8 @@ Reference behavior: slam/SLAM.java:120-153 and slam/ParticleFilter.java:59-82
 and select the first particle whose cumulative weight exceeds U_m; the
 selected particle is deep-copied (pose + both map arrays).
 
-TPU design: weights live in log space (the reference multiplies ~180 raw
-probabilities in double precision; float32 on TPU needs log-sum form).  The
+Design: weights live in log space (the reference multiplies ~180 raw
+probabilities in double precision; float32 needs log-sum form).  The
 "while U > c" walk becomes cumsum + searchsorted, and the deep copy becomes a
 single gather over the particle axis of the (P, H, W) map tensor.  Under a
 sharded particle axis XLA lowers the gather to collective-permute traffic.
@@ -33,9 +33,8 @@ def neff(log_weights):
 
 def _rank_indices(cum, u, n):
     """idx_j = #{i : cum_i < u_j} via ONE variadic merge-sort instead of
-    searchsorted: XLA's vmapped binary search costs 133 ms at n = 1M on
-    the dev chip (20 rounds of random gathers) while the sorted-merge rank
-    runs in ~17 ms.  Both cum and u are ascending; u entries are placed
+    searchsorted's ~20 rounds of random gathers per query.  Both cum and u
+    are ascending; u entries are placed
     FIRST in the concat so the stable sort keeps them before equal cum
     values (searchsorted side='left' strictness)."""
     key = jnp.concatenate([u, cum])
@@ -59,9 +58,7 @@ def _bitonic_merge_rank(cum, u, n):
     compare-exchange stages of contiguous reshaped min/max sort it —
     zero gathers and no O(m log^2 m) sorting network.  Each stage is one
     fused elementwise pass over a single int32 array, so the whole merge
-    is ~21 streaming passes at 1M particles where the variadic sort cost
-    22 ms (docs/bench/ROOFLINE.md row; round-5 silicon measurement in
-    the commit message).
+    is ~21 streaming passes at 1M particles.
 
     searchsorted-left tie semantics are EXACT by construction: keys are
     bitcast to int32 (order-preserving for non-negative floats; all
@@ -70,13 +67,11 @@ def _bitonic_merge_rank(cum, u, n):
     first, i.e. the cum element counts as NOT-before, exactly like
     jnp.searchsorted(..., side='left').
 
-    Measured at 1M on the dev v5e (round 5): pure-XLA merge stages down
-    to k=1 lose to the native sort (21.9 ms — the k < 128 stages force
-    lane-level relayouts), so the merge is HYBRID: slicing min/max
-    stages while k >= 8192, then one batched lax.sort over the
-    now-bitonic inter-ordered 8192-blocks.  10.6 ms vs 14.3 ms for the
-    variadic (f32 key + i32 payload) sort — most of the win is the
-    single packed int32 key; the stages add the last ~10 %."""
+    The merge is HYBRID: slicing min/max stages while k >= 8192, then one
+    batched lax.sort over the now-bitonic inter-ordered 8192-blocks (the
+    short-k stages are where a native sort does better).  The block size
+    and the choice against searchsorted or one lax.sort are open to
+    measurement on each device."""
     block = 8192
     m = 1 << (2 * n - 1).bit_length()
     pad = m - 2 * n

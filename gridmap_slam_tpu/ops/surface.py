@@ -7,12 +7,13 @@ precomputes the correlation volume
 
     C[it, iy, ix] = sum_b w_b * bilinear(LLF)(R(theta_it) p_b + cell(iy, ix))
 
-over a theta-bin grid x every integer cell translation (one MXU conv per
+over a theta-bin grid x every integer cell translation (one convolution per
 scan, cost independent of particle count), after which ANY pose's
 measurement log-likelihood is a trilinear sample of C (8 taps / particle).
-This is the classic likelihood-field MCL precomputation, organized
-TPU-first: endpoint kernels are built with one-hot matmuls (no scatter) and
-the correlation runs as `lax.conv_general_dilated` on the MXU.
+This is the classic likelihood-field MCL precomputation, organized for a
+data-parallel device: endpoint kernels are built with one-hot matmuls (no
+scatter) and the correlation runs as `lax.conv_general_dilated` (or an FFT
+for large crops).
 
 Exactness: at integer cell translations and exact bin angles, C equals the
 matcher backends' scores to float precision (the splat identity:
@@ -72,7 +73,7 @@ def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
     robot.  Beams beyond the kernel radius clamp to the rim (they would
     read the constant outside value anyway when the crop covers the map).
 
-    Built with two-tap one-hot matmuls on the MXU (no scatter):
+    Built with two-tap one-hot matmuls (no scatter):
     E = A_y^T A_x with A_* the bilinear corner weights.
     """
     k = 2 * k_cells + 1
@@ -93,27 +94,26 @@ def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
         a_x = (jnp.where(ix[None, :] == x0i[:, None], 1.0 - tx[:, None], 0.0)
                + jnp.where(ix[None, :] == x0i[:, None] + 1, tx[:, None], 0.0))
         # HIGHEST: tap weights are fractional, and endpoint images feed
-        # both correlation modes — bf16-rounded splats would perturb every
-        # downstream score (TPU DEFAULT truncates f32 matmul inputs).
+        # both correlation modes — splats rounded to a reduced-precision
+        # matmul input format (bf16 / TF32 at DEFAULT precision) would
+        # perturb every downstream score.
         return jax.lax.dot((a_y * wgt[:, None]).T, a_x,
-                           precision=jax.lax.Precision.HIGHEST)  # (K, K) MXU
+                           precision=jax.lax.Precision.HIGHEST)  # (K, K)
 
     return jax.vmap(one)(thetas)
 
 
 def _fft_size(n: int) -> int:
     """FFT length for one axis: the exact linear-correlation length `n`
-    rounded UP to a TPU-friendly size.  XLA's TPU FFT degrades sharply on
-    lengths with large prime factors — measured on the city preset
-    (round 5, v5e): n = 916 = 4*229 costs 20.8 ms per 25-bin volume vs
-    11.5 ms zero-padded to 1024; yet n = 524 = 4*131 (mega preset) runs
-    at 4.4 ms and padding it to 1024 would COST 11.7 ms — so blanket
-    power-of-two padding is wrong.  Policy from those measurements: take
-    the next 5-smooth length (2^a 3^b 5^c: 524 -> 540 @ 4.2 ms,
-    916 -> 960 @ 12.9 ms), except when that lands within ~12 % of the
-    next power of two, where the pure radix-2 plan wins (960 vs 1024:
-    12.9 vs 11.5 ms).  Zero-padding past the exact length only adds
-    zeros outside the kept correlation window — output unchanged."""
+    rounded UP to a size FFT libraries plan well.  Lengths with large prime
+    factors (the city preset's 916 = 4*229) get slow plans, while blanket
+    power-of-two padding inflates lengths that are already smooth (524 ->
+    1024).  Policy: the next 5-smooth length (2^a 3^b 5^c: 524 -> 540,
+    916 -> 960), except when that lands within ~12 % of the next power of
+    two, where the pure radix-2 plan is taken.  Which lengths are fast on
+    a given FFT library is open to measurement.  Zero-padding past the
+    exact length only adds zeros outside the kept correlation window —
+    output unchanged."""
     p2 = 1 << max(n - 1, 1).bit_length()
     s5 = p2
     v3 = 1
@@ -140,8 +140,8 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
     padded by kc with ll_outside so endpoints past the crop read the
     out-of-map constant (matching the matcher backends).
 
-    bf16=True runs the correlation at the MXU's native precision (f32
-    accumulate) with the field range centered around zero; the exact shift
+    bf16=True runs the correlation with bf16 inputs (f32 accumulate) with
+    the field range centered around zero; the exact shift
     mass (sum of each bin's endpoint weights, computed in f32 before the
     cast) is subtracted back, leaving only ~1e-2 quantization noise on the
     log-scores — negligible against particle weighting noise at the scales
@@ -158,9 +158,7 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
         # padded frame height Hc + 2*kc = Hc + K - 1 is exactly the linear
         # correlation length, so no extra zero-padding and no circular
         # wrap-around in the kept [0, Hc) x [0, Wc) output window.  The
-        # transform lengths round up to TPU-friendly sizes (_fft_size):
-        # the city preset's exact length 916 = 4*229 is a 1.8x FFT
-        # pathology.
+        # transform lengths round up to smooth sizes (_fft_size).
         h2, w2 = _fft_size(fpad.shape[0]), _fft_size(fpad.shape[1])
         f_hat = jnp.fft.rfft2(fpad, s=(h2, w2))
         e_hat = jnp.fft.rfft2(e_stack, s=(h2, w2))
@@ -179,8 +177,9 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
         return out[0] - shift * mass[:, None, None]
     # conv_general_dilated cross-correlates when the kernel is unflipped:
     # out[t, y, x] = sum_{dy,dx} fpad[y+dy, x+dx] * E[t, dy, dx].
-    # HIGHEST keeps the f32 mode honestly f32 on TPU (DEFAULT truncates
-    # f32 conv inputs to bf16 — that's what bf16=True is for).
+    # HIGHEST keeps the f32 mode honestly f32 (at DEFAULT precision a
+    # device may round conv inputs to bf16 or TF32 — that's what bf16=True
+    # is for).
     out = jax.lax.conv_general_dilated(
         fpad[None, None, :, :], e_stack[:, None, :, :],
         window_strides=(1, 1), padding="VALID",
@@ -197,10 +196,8 @@ def pack_neighborhoods(c_vol, wrap_theta: bool = False):
     _tap's index clipping.
 
     Purpose: a trilinear sample becomes ONE contiguous 8-wide gather
-    instead of 8 scalar gathers — measured 3.5 ms vs 53 ms for 1M
-    particles on the dev chip (the scalar-gather trap, docs/TPU_FAULT.md).
-    The packed array is 8x the volume's memory, built once per scan with
-    static slices.
+    instead of 8 scalar gathers.  The packed array is 8x the volume's
+    memory, built once per scan with static slices.
     """
     nt, hc, wc = c_vol.shape
     v = jnp.pad(c_vol, ((0, 0), (1, 1), (1, 1)), mode="edge")

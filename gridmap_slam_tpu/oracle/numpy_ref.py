@@ -3,7 +3,7 @@ math, used as ground truth in unit tests and as the single-thread CPU baseline
 proxy in benchmarks (the reference itself is Java and not runnable here).
 
 Semantics follow the reference (file:line cited per function); this is NOT the
-TPU path — it is deliberately written the way the Java code works (per-beam
+engine's path — it is deliberately written the way the Java code works (per-beam
 DDA walks, dense double precision) so the vectorized JAX ops can be validated
 against it.
 """

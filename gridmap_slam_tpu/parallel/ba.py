@@ -22,34 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..models.posegraph import PoseGraph, residuals_and_jacobians
+from ..models.posegraph import PoseGraph, normal_equations
 from ..ops.geometry import wrap_angle
-
-
-def _partial_normal_eqs(nodes, edge_i, edge_j, edge_z, edge_w):
-    """H (3K,3K), b (3K,), chi2 for a (local) edge set."""
-    k = nodes.shape[0]
-    e, ji, jj = residuals_and_jacobians(nodes, edge_i, edge_j, edge_z)
-    w = edge_w
-    chi2 = jnp.sum(w * e * e)
-    wji = w[:, :, None] * ji
-    wjj = w[:, :, None] * jj
-    h_ii = jnp.einsum("eab,eac->ebc", ji, wji)
-    h_jj = jnp.einsum("eab,eac->ebc", jj, wjj)
-    h_ij = jnp.einsum("eab,eac->ebc", ji, wjj)
-    b_i = jnp.einsum("eab,ea->eb", ji, w * e)
-    b_j = jnp.einsum("eab,ea->eb", jj, w * e)
-
-    hb = jnp.zeros((k, k, 3, 3), nodes.dtype)
-    hb = hb.at[edge_i, edge_i].add(h_ii)
-    hb = hb.at[edge_j, edge_j].add(h_jj)
-    hb = hb.at[edge_i, edge_j].add(h_ij)
-    hb = hb.at[edge_j, edge_i].add(jnp.swapaxes(h_ij, -1, -2))
-    b = jnp.zeros((k, 3), nodes.dtype)
-    b = b.at[edge_i].add(b_i)
-    b = b.at[edge_j].add(b_j)
-    return hb.transpose(0, 2, 1, 3).reshape(3 * k, 3 * k), b.reshape(3 * k), \
-        chi2
 
 
 def make_distributed_optimizer(mesh: Mesh, iterations: int = 10,
@@ -59,7 +33,7 @@ def make_distributed_optimizer(mesh: Mesh, iterations: int = 10,
 
     def shard_fn(graph: PoseGraph):
         def gn_iter(nodes, _):
-            h_part, b_part, chi2_part = _partial_normal_eqs(
+            h_part, b_part, chi2_part = normal_equations(
                 nodes, graph.edge_i, graph.edge_j, graph.edge_z,
                 graph.edge_w)
             h = jax.lax.psum(h_part, "p")          # <- the Schur reduction
@@ -75,8 +49,10 @@ def make_distributed_optimizer(mesh: Mesh, iterations: int = 10,
             new_nodes = new_nodes.at[:, 2].set(wrap_angle(new_nodes[:, 2]))
             return new_nodes, chi2
 
-        nodes, chi2s = jax.lax.scan(gn_iter, graph.nodes, None,
-                                    length=iterations)
+        # f32 solve, as in models/posegraph.optimize
+        with jax.default_matmul_precision("float32"):
+            nodes, chi2s = jax.lax.scan(gn_iter, graph.nodes, None,
+                                        length=iterations)
         return graph.replace(nodes=nodes), chi2s
 
     graph_spec = PoseGraph(nodes=P(), edge_i=P("p"), edge_j=P("p"),

@@ -1,23 +1,21 @@
 """Bytes-per-scan communication model for the distributed engines.
 
-Round-4 VERDICT #6: the multi-host efficiency criterion (BASELINE: >= 80 %
-on a 2-host v5p slice) cannot be *measured* in this one-chip environment,
-but it can be *modeled*: every distributed step's collectives are known by
-construction, so per-scan payload bytes follow from the config and mesh.
-This module enumerates them per engine; `docs/scaling_cpu.md`'s comm
-section and the 2-host projection are generated from these tables
-(scripts/scaling_table.py), and tests/test_comm_model.py pins the
-enumeration against the engines' actual collective structure.
+Every distributed step's collectives are known by construction, so
+per-scan payload bytes follow from the config and mesh.  This module
+enumerates them per engine; `docs/scaling_cpu.md`'s comm section is
+generated from these tables (scripts/scaling_table.py), and
+tests/test_comm_model.py pins the enumeration against the engines' actual
+collective structure.  The bytes are device-neutral; collective TIME comes
+from a profiler trace on the devices themselves.
 
 Layout rule recap (parallel/dcn.py): the particle axis 'p' maps to the
-host (DCN) dimension, map tiles 'm' stay inside a host (ICI).  So the
-DCN-relevant rows are exactly the axis='p' rows.
+host dimension (the inter-host network), map tiles 'm' stay inside a host.
+So the inter-host rows are exactly the axis='p' rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import List
 
 from ..config import SlamConfig
@@ -29,7 +27,7 @@ class CollectiveRow:
 
     engine: str
     collective: str        # psum | all_gather | ppermute | pmax
-    axis: str              # 'p' (DCN candidate) | 'm' (ICI)
+    axis: str              # 'p' (inter-host candidate) | 'm' (intra-host)
     bytes_per_scan: int    # payload bytes moved per device per scan
     when: str              # 'every scan' | 'resampling scans only'
     what: str
@@ -122,42 +120,3 @@ def comm_table(cfg: SlamConfig, n_p: int, n_m: int,
     else:
         raise ValueError(engine)
     return rows
-
-
-def project_two_host(cfg: SlamConfig, n_p: int, n_m: int, engine: str,
-                     step_ms: float, resample_rate: float,
-                     dcn_gbps: float = 25.0,
-                     dcn_latency_us: float = 30.0) -> dict:
-    """Projected 2-host efficiency: hosts split the 'p' axis, so only
-    axis='p' payloads cross DCN (an all_gather moves ~half its payload
-    across the host boundary; psums a tree hop — both bounded by the full
-    payload, used here as the conservative bound).  `step_ms` is the
-    measured single-host per-scan compute at the same per-device load;
-    `resample_rate` the measured fraction of scans that resample.
-    Default dcn_gbps/latency are conservative public v5p-class figures;
-    the loopback 2-process proxy row in docs/scaling_cpu.md is the
-    structural (not bandwidth) validation."""
-    rows = comm_table(cfg, n_p, n_m, engine)
-    dcn_rows = [r for r in rows if r.axis == "p"]
-    every = sum(r.bytes_per_scan for r in dcn_rows
-                if r.when == "every scan")
-    resamp = sum(r.bytes_per_scan for r in dcn_rows
-                 if r.when != "every scan")
-    n_coll = len(dcn_rows)
-    avg_bytes = every + resample_rate * resamp
-    comm_ms = (avg_bytes / (dcn_gbps * 1e9) * 1e3
-               + n_coll * dcn_latency_us * 1e-3)
-    eff = step_ms / (step_ms + comm_ms)
-    return {
-        "engine": engine,
-        "dcn_bytes_every_scan": every,
-        "dcn_bytes_resampling_scan": resamp,
-        "resample_rate": resample_rate,
-        "dcn_avg_bytes_per_scan": int(avg_bytes),
-        "assumed_dcn_gbps": dcn_gbps,
-        "assumed_dcn_latency_us": dcn_latency_us,
-        "step_ms": step_ms,
-        "projected_comm_ms": round(comm_ms, 4),
-        "projected_2host_efficiency": round(eff, 4),
-        "meets_80pct_criterion": bool(eff >= 0.80),
-    }

@@ -1,11 +1,12 @@
-"""Multi-host (DCN) initialization and mesh construction.
+"""Multi-host initialization and mesh construction.
 
-Single-host meshes scale particles/map-tiles over ICI; multi-host slices add
-a DCN dimension.  The layout rule for this workload (SURVEY.md §2.10): put
-the PARTICLE axis on the host (DCN) dimension — particle shards never
-exchange maps outside resampling, and the distributed resampler's
-all_gather of (pose, log-weight) rows is tiny — and keep map-tile axes
-('m') inside a host so blur halos and tile reads ride ICI.
+Single-host meshes scale particles/map-tiles over the host's device links
+(NVLink); multi-host runs add the inter-host network (DCN, the data-center
+network).  The layout rule for this workload (SURVEY.md §2.10): put the
+PARTICLE axis on the host dimension — particle shards never exchange maps
+outside resampling, and the distributed resampler's all_gather of
+(pose, log-weight) rows is tiny — and keep map-tile axes ('m') inside a
+host so blur halos and tile reads stay on the device links.
 
 Usage (one process per host, standard JAX multi-process):
 
@@ -38,19 +39,8 @@ def initialize(coordinator: Optional[str] = None,
     jax.distributed.initialize — those initialize the XLA backend and
     initialize() then refuses to run.  Already-initialized state is detected
     through the distributed client handle instead."""
-    try:
-        if jax.distributed.is_initialized():
-            return                   # distributed service already up
-    except AttributeError:
-        # older JAX: fall back to the private client handle; treat any
-        # breakage of that internal as "unknown" and let initialize()'s own
-        # already-initialized ValueError handle it below.
-        try:
-            from jax._src import distributed as _dist
-            if getattr(_dist.global_state, "client", None) is not None:
-                return
-        except Exception:
-            pass
+    if jax.distributed.is_initialized():
+        return                       # distributed service already up
     kwargs = {}
     if coordinator is not None:
         kwargs["coordinator_address"] = coordinator

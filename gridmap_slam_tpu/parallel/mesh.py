@@ -6,15 +6,17 @@ kind); its de-facto parallel axis is the 500-iteration particle loop.  Here:
 - axis 'p' (particle parallelism, the DP analog): particles and their maps are
   sharded across devices; the per-particle update needs no communication at
   all, weight normalization/Neff are tiny all-reduces, and resampling is a
-  gather whose cross-shard traffic XLA lowers onto ICI.
+  gather whose cross-shard traffic XLA lowers onto the device links.
 - axis 'm' (map-tile parallelism, the TP/SP analog): the map W dimension is
   sharded; the dense gather-free occupancy update is tile-local by
   construction (each cell's update depends only on pose+scan), the blur's
   shifted adds become 1-cell halo collective-permutes inserted by XLA.
 
 Multi-host: the same mesh spans hosts via jax.distributed.initialize();
-'p' should map to the DCN-connected (host) dimension since particle shards
-never exchange maps outside resampling.
+'p' should map to the host dimension (the inter-host network) since
+particle shards never exchange maps outside resampling.  Within a host the
+GPUs are joined all to all (NVLink), so the mesh follows the algorithm,
+not a torus.
 """
 
 from __future__ import annotations

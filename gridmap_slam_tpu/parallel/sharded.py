@@ -3,13 +3,14 @@
 The single-chip RBPF.step is already one pure function of (state, frame); to
 scale it across a mesh we annotate state shardings and let XLA partition the
 program: the vmapped per-particle update parallelizes trivially over 'p',
-weight normalization / Neff / argmax become all-reduces over ICI, and the
+weight normalization / Neff / argmax become all-reduces, and the
 systematic-resampling gather becomes cross-shard collective traffic only for
 the (rare) ancestor rows that cross shard boundaries.
 
 This is the idiomatic first rung of the sharding ladder (GSPMD auto-
-partitioning); the pallas halo-exchange kernels build on it for map-tiled
-('m' axis) configurations.
+partitioning); the explicit-collective engines (shmap.py, tiled.py,
+surface_sharded.py) build on the same mesh for map-tiled ('m' axis)
+configurations.
 """
 
 from __future__ import annotations

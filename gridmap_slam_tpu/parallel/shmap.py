@@ -2,7 +2,7 @@
 
 The GSPMD path (parallel/sharded.py) lets XLA infer collectives; this module
 is the hand-scheduled equivalent for the scalable shared-map engine, where
-every cross-device exchange is an explicit ICI collective:
+every cross-device exchange is an explicit collective:
 
 - particles (poses + log-weights) sharded over mesh axis 'p'; the shared map
   is replicated (64 MB even for a 200x200 m @ 5 cm grid — map *tiling* over
@@ -58,7 +58,7 @@ def make_shmap_step(engine: SharedMapSLAM, mesh: Mesh,
     surface=True swaps the per-particle correlative matcher for the
     likelihood-volume path (models/shared.step_surface semantics): the
     volume is built REDUNDANTLY on every shard (replicated compute — one
-    MXU conv each, no communication, like the map update) and each shard
+    correlation each, no communication, like the map update) and each shard
     taps it for its local particles; weighting/resampling collectives are
     identical."""
     cfg = engine.config
@@ -132,7 +132,7 @@ def make_shmap_step(engine: SharedMapSLAM, mesh: Mesh,
         if cfg.accumulate_weights:   # SIS mode, same as models/rbpf.py
             lw = lw + state.log_weights
 
-        # ---- global weight statistics over ICI ----
+        # ---- global weight statistics over 'p' ----
         m = jax.lax.pmax(jnp.max(lw), "p")
         # AMCL recovery EMAs on the replicated global max log-weight
         # (models/shared.recovery_update; round-5)
@@ -183,10 +183,8 @@ def make_shmap_step(engine: SharedMapSLAM, mesh: Mesh,
             # difference between per-scan and occasional cross-host
             # traffic (round-5; see docs/scaling_cpu.md comm model).
             # Every shard computes the SAME global ancestor indices from
-            # the shared key (systematic_indices: the sort-rank form —
-            # the per-shard searchsorted this replaces was the 133 ms
-            # @1M scalar-gather trap, docs/bench/ROOFLINE.md) and slices
-            # its segment.
+            # the shared key (systematic_indices: the sort-rank form) and
+            # slices its segment.
             lw_all = jax.lax.all_gather(lw, "p", tiled=True)      # (P,)
             poses_all = jax.lax.all_gather(poses, "p", tiled=True)  # (P,3)
             idx_all = systematic_indices(k_resample, lw_all)

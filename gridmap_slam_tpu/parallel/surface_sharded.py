@@ -1,13 +1,12 @@
-"""Map-sharded SURFACE-mode SLAM: the production 1M-particle path composed
-with map tiling — round-4 VERDICT missing #1.
+"""Map-sharded SURFACE-mode SLAM: the 1M-particle path composed with map
+tiling.
 
-Until round 4 the two scalable designs did not compose: surface mode (the
-only formulation that reaches 1M particles at 20 scans/s — one likelihood
-volume per scan, ~8 taps per particle) replicated the FULL map and rebuilt
-the FULL volume on every shard (parallel/shmap.py), while the map-tiled
-engine (parallel/tiled.py) served the per-particle matcher, ~13x slower at
-1M.  BASELINE config 5 (city-scale multi-robot across hosts) needs both at
-once.  This module is that composition, on a ('p', 'm') mesh:
+Surface mode (one likelihood volume per scan, ~8 taps per particle)
+replicates the FULL map and rebuilds the FULL volume on every shard in
+parallel/shmap.py, while the map-tiled engine (parallel/tiled.py) serves
+the per-particle matcher.  BASELINE config 5 (city-scale multi-robot)
+needs both at once.  This module is that composition, on a ('p', 'm')
+mesh:
 
 - the log-odds map is sharded in COLUMN TILES over 'm' (same layout as
   parallel/tiled.py) and particles over 'p'; device (i, j) holds particle
@@ -19,13 +18,12 @@ once.  This module is that composition, on a ('p', 'm') mesh:
   (~(hc+2r) x (wc+2r) floats — ~1 MB for the city's 512^2 crop, vs
   64 MB to replicate the city map), and the likelihood field is built
   crop-locally and redundantly per device — no per-scan full-map work,
-  no halo ppermutes (the first silicon run's full-map tiled blur + a
-  searchsorted resample made it 2.5x the plain step; both fixed);
+  no halo ppermutes;
 - the correlation itself is sharded over 'm' BY THETA BIN: each map shard
   splats and correlates only its ceil(nt/m) bins against the assembled
   crop, then one `all_gather` over 'm' assembles the (nt, hc, wc) volume
-  — the conv/FFT cost (the dominant per-scan term at city scale,
-  docs/bench/ROOFLINE.md) divides by m instead of being replicated;
+  — the conv/FFT cost (the dominant per-scan term at city scale by its
+  operation count) divides by m instead of being replicated;
 - particle taps / hill-climb / weighting / distributed resampling run on
   the 'p' shards exactly as in parallel/shmap.py (volume semantics shared
   via models/shared.surface_volume's building blocks: theta_grid wrap,
@@ -41,10 +39,9 @@ Per-device memory at BASELINE city scale (200x200 m @ 5 cm, crop 512,
 nt 25, m = 8):  map tile 8 MB (was 64 MB replicated), assembled raw
 crop + field ~1 MB each, volume 26 MB + packed tap neighborhoods 8x
 ~210 MB (all crop-sized — INDEPENDENT of map size; the packed array is
-the price of the 15x tap speedup, docs/TPU_FAULT.md).  Only crop-sized
-state is replicated, so the design scales to arbitrarily large maps.
-Measured at mesh (1,1) on the city preset: 42.4 ms/scan = 0.994x the
-plain step_surface (docs/bench/surface_sharded_r5.json).
+what makes each particle's trilinear sample one 8-wide gather).  Only
+crop-sized state is replicated, so the design scales to arbitrarily large
+maps.
 
 Reference: none — new capability per SURVEY §2.10 (the reference is
 single-threaded Java with one 6x6 m map).
@@ -150,9 +147,8 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh: Mesh,
         # ---- raw log-odds crop assembly (extended by the blur radius):
         # masked column gather + one psum over 'm'.  The likelihood field
         # is then built CROP-LOCALLY, redundantly per device (a ~(crop +
-        # 2r)^2 blur — trivial), replacing the full-map tiled blur + halo
-        # exchanges that made the sharded step 2.5x the plain one at city
-        # scale (round-5 silicon finding, docs/bench/surface_sharded_r5)
+        # 2r)^2 blur — trivial), instead of a full-map tiled blur + halo
+        # exchanges whose cost grows with the map
         iy0, ix0 = crop_center_cells(center[:2], (hc, wc), (h, w_total),
                                      res, origin)
         ey0 = jnp.clip(iy0 - r, 0, h - hce)
@@ -258,9 +254,7 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh: Mesh,
 
         def resample(_):
             # gated all_gathers + shared-key global sort-rank indices
-            # (see parallel/shmap.py; searchsorted here was the 133 ms
-            # @1M trap that made the first silicon run 2.5x the plain
-            # step)
+            # (see parallel/shmap.py)
             lw_all = jax.lax.all_gather(lw, "p", tiled=True)
             poses_all = jax.lax.all_gather(poses, "p", tiled=True)
             idx_all = systematic_indices(k_resample, lw_all)

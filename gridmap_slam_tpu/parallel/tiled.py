@@ -41,7 +41,7 @@ from ..models.shared import (SharedMapSLAM, SharedMapState,
                              recovery_update)
 from ..ops.geometry import deskew_scan, scan_points, wrap_angle
 from ..ops.grid import threshold_occupancy
-from ..ops.matcher import _prior_grid, _argmax3
+from ..ops.matcher import _argmax3, _prior_grid, resolve_impl
 from ..ops.geometry import wrap_angle as _wrap
 from ..ops.motion import apply_odometry, noise_scales, sample_motion
 from ..ops.raycast import build_beam_lut, integrate_scan
@@ -162,13 +162,11 @@ def _stage_scores_tiled_matmul(ll_ext, px, py, use, pose0, dxs, dys, dts, *,
                                resolution, origin, max_range, w_total, h,
                                tile_j, w_loc, ext, nearest=False,
                                bf16=False):
-    """MXU formulation of _stage_scores_tiled: same per-tile partial
-    scores, zero random gathers (round-3 VERDICT missing #3 — the tiled
-    path scored through `flat[idx]` gathers, the formulation measured at
-    ~0.3 GB/s effective on TPU and the reason ops/matcher_matmul.py
-    exists).
+    """Matrix-contraction formulation of _stage_scores_tiled: same per-tile
+    partial scores, zero random gathers (the tiled counterpart of
+    ops/matcher_matmul.py).
 
-    Bilinear taps become two-tap one-hot MXU contractions against the
+    Bilinear taps become two-tap one-hot contractions against the
     2-cell ll_outside-banded tile frame (exact matcher_matmul semantics:
     clamped taps land in the band); tap ownership (the psum-exactly-once
     rule: owner = tile of the base column) is folded into the a_x one-hot
@@ -239,9 +237,7 @@ def _match_tiled(ll_ext, scan, pose0, odom, *, mcfg, motion_cfg, resolution,
     wt_rad = math.radians(mcfg.window_theta_deg)
     kw = dict(resolution=resolution, origin=origin, max_range=max_range,
               w_total=w_total, h=h, tile_j=tile_j, w_loc=w_loc, ext=ext)
-    impl = getattr(mcfg, "impl", "gather")
-    if impl in ("auto", "pallas"):
-        impl = "matmul" if jax.default_backend() == "tpu" else "gather"
+    impl = resolve_impl(mcfg.impl)
     if impl == "matmul":
         def _scores(pxx, pyy, uss, p0, dxs_, dys_, dts_, **kw2):
             return _stage_scores_tiled_matmul(

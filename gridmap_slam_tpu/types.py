@@ -10,13 +10,23 @@ is one jittable function of (state, frame) -> state.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree: every field is a child,
+    flattened in declaration order, and `.replace(**changes)` returns a
+    copy with those fields swapped."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = dataclasses.replace
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class Scan:
     """One full LiDAR revolution, fixed width B (reference Observation).
 
@@ -52,7 +62,7 @@ class Scan:
                     hit=jnp.asarray(ph), valid=jnp.asarray(pv))
 
 
-@struct.dataclass
+@pytree_dataclass
 class Odom:
     """Relative odometry for one scan interval (reference Odometry).
 
@@ -75,7 +85,7 @@ class Odom:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Frame:
     """One SLAM input: a scan plus the odometry accumulated since the previous
     scan (reference TimeFrame).  `t` is the recording timestamp in seconds."""
@@ -85,7 +95,7 @@ class Frame:
     t: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class SlamState:
     """Full Rao-Blackwellized particle-filter state.
 
@@ -103,7 +113,7 @@ class SlamState:
     step: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class StepInfo:
     """Per-scan diagnostics (reference prints / ImGui readouts)."""
 

@@ -1,7 +1,7 @@
 """Live terminal visualization of SLAM state while scans stream in.
 
 The reference renders map/particles/scan overlays every frame in an OpenGL
-window (app/GridMapApp.java:215-433).  The TPU-side equivalent surface is a
+window (app/GridMapApp.java:215-433).  The equivalent surface here is a
 terminal: an ANSI half-block rendering of the occupancy grid with the pose,
 particle cloud, and per-scan stats, redrawn in place as frames arrive, plus
 optional periodic PNG snapshots (utils/viz.render_map) for headless runs.

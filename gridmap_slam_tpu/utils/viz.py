@@ -2,7 +2,8 @@
 
 Replaces the reference's live OpenGL/ImGui rendering (L6/L0 layers,
 app/GridMapApp.java:215-433, graphics/*) with headless matplotlib exports —
-the appropriate surface for a TPU-side engine (SURVEY.md §1 TPU mapping).
+the appropriate surface for an accelerator-side engine.  matplotlib is
+optional: the CLI skips these renders when it is not installed.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ Track for K scans from pose A; splice a second log recorded from pose B
 injection activity with and without recovery enabled.
 
 Writes docs/bench/kidnap_r5.json.
-Usage:  python scripts/kidnap_demo.py --particles 200000     # TPU
+Usage:  python scripts/kidnap_demo.py --particles 200000     # GPU
         python scripts/kidnap_demo.py --particles 20000 --nt 24  # CPU
 """
 

@@ -32,7 +32,7 @@ Neff, per-room particle mass (the multimodality evidence), and
 scans-to-converge.  Writes docs/bench/psweep_r5.json.
 Round-5 result (5 seeds): success 10k 20% / 100k 80% / 1M 100%.
 
-Usage:  python scripts/psweep_r5.py                 # TPU, full sweep
+Usage:  python scripts/psweep_r5.py                 # GPU, full sweep
         python scripts/psweep_r5.py --smoke         # CPU-sized
 """
 

@@ -24,7 +24,7 @@ Protocol:
      < 2 * resolution after convergence.
 
 Usage:
-  python scripts/reloc_demo.py --particles 1000000 --frames 20   # TPU
+  python scripts/reloc_demo.py --particles 1000000 --frames 20   # GPU
   python scripts/reloc_demo.py --particles 20000 --frames 12     # CPU smoke
 """
 

@@ -1,5 +1,6 @@
 """App-layer tests: live loopback pipeline, recorder state machine, CLI."""
 
+import json
 import time
 
 import numpy as np
@@ -304,3 +305,26 @@ def test_cli_distributed_engines(tmp_path):
           "--set", "matcher.surface_nt=7",
           "--set", "sensor.max_range=5.0"])
     assert (tmp_path / "s" / "replay_map.png").exists()
+
+
+def test_cli_replay_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """With matplotlib unimportable, replay still writes the trajectory,
+    the metrics and the map, and says on stderr which PNG it skipped."""
+    import sys
+
+    from gridmap_slam_tpu.app.cli import main
+    main(["synth", "--revs", "3", "--beams", "60", "--particles", "6",
+          "--max-beams", "64", "--out", str(tmp_path / "s"),
+          "--save-log", str(tmp_path / "log.rec")])
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    capsys.readouterr()
+    out = tmp_path / "r"
+    main(["replay", "--log", str(tmp_path / "log.rec"), "--particles", "6",
+          "--max-beams", "64", "--out", str(out)])
+    err = capsys.readouterr().err
+    assert (out / "replay_trajectory.npy").exists()
+    metrics = json.loads((out / "replay_metrics.json").read_text())
+    assert metrics["frames"] == 3 and metrics["first_scan_s"] > 0
+    assert np.load(out / "replay_map.npy").shape == (120, 120)
+    assert not (out / "replay_map.png").exists()
+    assert "matplotlib not installed: skipped" in err

@@ -6,10 +6,7 @@ order, half-res coarse basin selection), so per-scan argmaxes — and hence
 the stochastic filter's trajectories — are NOT bit-identical across
 backends.  What is enforced: on a canonical log with a fixed seed, every
 backend's ATE must lie within ATE_TOL_M of every other backend's, and
-each must meet the absolute bound.  The Pallas backend's stage SCORES are
-pinned to the schedule by value tests (tests/test_pallas_matcher.py,
-interpret mode) and its trajectory is measured on silicon every round
-(BENCH parity rungs); the portable backends are enforced here in CI.
+each must meet the absolute bound.
 """
 
 import numpy as np

@@ -1,10 +1,10 @@
-"""bench.py ladder plumbing — CPU-only, no TPU.
+"""bench.py ladder plumbing, on the CPU (no measurement runs here).
 
-The ladder is the round deliverable (the driver parses its final stdout
-line), so its failure modes are tested explicitly: per-rung errors must not
-kill the child, the parent must stream best-so-far lines, the global
-deadline must kill a hung child and still exit 0 with a parseable line,
-and a no-results run must surface the round's prior measured numbers.
+The ladder's final stdout line is what a benchmark reader parses, so its
+failure modes are tested explicitly: per-rung errors must not kill the
+child, the parent must stream best-so-far lines, the global deadline must
+kill a hung child and still exit 0 with a parseable line, and a measurement
+without a GPU must fail.
 """
 
 import contextlib
@@ -12,6 +12,8 @@ import io
 import json
 import sys
 from pathlib import Path
+
+import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -25,15 +27,11 @@ def test_parse_override():
     assert bench._parse_override("a.b=auto") == ("a.b", "auto")
 
 
-def test_prior_measurements_parse():
-    prior = bench._prior_measurements()
-    # The committed rung logs (round-3 + round-4) must each parse to a rate.
-    assert set(prior) == {"ladder_r4_full", "chip10k_pallas",
-                          "parity_bf16", "parity_f32", "mega_surface",
-                          "city_surface"}
-    for v in prior.values():
-        assert v["scans_per_sec"] > 0
-        assert v["source"].startswith("docs/bench/")
+def test_measure_refuses_without_gpu():
+    """A measurement on the CPU backend is an error, not a CPU number."""
+    args = bench.build_parser().parse_args(["--preset", "parity"])
+    with pytest.raises(SystemExit, match="GPU"):
+        bench.measure(args)
 
 
 def test_run_rungs_isolates_rung_errors(monkeypatch):
@@ -100,4 +98,3 @@ def test_ladder_parent_no_results_still_parseable(tmp_path, monkeypatch):
     last = results[-1]
     assert last["value"] is None
     assert last["error"] == "no ladder rung completed"
-    assert "parity_bf16" in last["prior_measurements_this_round_not_fresh"]

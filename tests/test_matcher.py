@@ -103,36 +103,27 @@ def test_unknown_map_scores_uniform():
 
 
 def test_matcher_impl_auto_and_pallas_resolution(monkeypatch):
-    """impl resolution policy (round-5 default-fast-path change):
-    - 'auto' resolves to the Pallas stage kernel ONLY on a real TPU
-      backend (CPU test env: off);
-    - explicit 'pallas' on a map too wide for the kernel raises instead of
-      silently degrading to the slowest gather backend (round-4 ADVICE);
-    - 'auto' on a (mocked) TPU backend turns the Pallas matcher on when
-      the map fits and falls back cleanly when it does not."""
-    from gridmap_slam_tpu import models
-    from gridmap_slam_tpu.config import MapConfig, SlamConfig
-    from gridmap_slam_tpu.models.rbpf import RBPF
-
-    parity = SlamConfig(num_particles=4)           # 120-cell map: fits
-    wide = SlamConfig(num_particles=4,
-                      map=MapConfig(width_m=10.0, height_m=6.0,
-                                    resolution=0.05, origin=(-5.0, -3.0)))
-
-    # CPU backend (test env): auto never selects pallas
-    assert RBPF(parity)._pallas_matcher is False
-
-    # explicit pallas + too-wide map: hard error, not silent degradation
+    """impl resolution policy: 'auto' is the gather backend whatever the
+    platform (no backend test), and the removed 'pallas' impl is refused
+    by name — by the resolver and by every engine's constructor — instead
+    of silently running another backend."""
+    import jax
     import pytest as _pytest
-    with _pytest.raises(ValueError, match="124 cells"):
-        RBPF(wide.with_overrides({"matcher.impl": "pallas"}))
+    from gridmap_slam_tpu.config import SlamConfig
+    from gridmap_slam_tpu.models.rbpf import RBPF
+    from gridmap_slam_tpu.models.shared import SharedMapSLAM
+    from gridmap_slam_tpu.ops.matcher import MATCHER_IMPLS, resolve_impl
 
-    # mocked TPU backend: auto -> pallas when the map fits, matmul path
-    # (pallas off) when it does not
-    monkeypatch.setattr(models.rbpf, "_tpu_backend", lambda: True)
-    assert RBPF(parity)._pallas_matcher is True
-    assert RBPF(wide)._pallas_matcher is False
-    # GRIDMAP_PALLAS=0 escape hatch flows through _tpu_backend itself
-    monkeypatch.undo()
-    monkeypatch.setenv("GRIDMAP_PALLAS", "0")
-    assert models.rbpf._tpu_backend() is False
+    for platform in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda p=platform: p)
+        assert resolve_impl("auto") == "gather"
+    for impl in ("gather", "splat", "matmul"):
+        assert resolve_impl(impl) == impl
+    assert "pallas" not in MATCHER_IMPLS
+
+    cfg = SlamConfig(num_particles=4).with_overrides(
+        {"matcher.impl": "pallas"})
+    for make in (resolve_impl, RBPF, SharedMapSLAM):
+        arg = "pallas" if make is resolve_impl else cfg
+        with _pytest.raises(ValueError, match="gather.*splat.*matmul"):
+            make(arg)

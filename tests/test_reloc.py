@@ -2,8 +2,8 @@
 
 The capability that justifies huge particle counts (round-3 VERDICT): a
 uniform-over-the-map cloud with full-circle theta bins must converge to the
-true pose.  CPU-sized here (the 1M-particle TPU artifact lives in
-docs/bench/reloc1m_r4.json via scripts/reloc_demo.py).
+true pose.  CPU-sized here (scripts/reloc_demo.py runs it at 1M
+particles).
 """
 
 import math

@@ -69,8 +69,8 @@ def test_log_weight_shift_invariance():
 
 
 def test_rank_indices_matches_searchsorted_big_p():
-    """The huge-P sorted-merge rank path (used for n >= 2^16, where XLA's
-    searchsorted costs 133 ms at 1M on TPU) produces searchsorted's exact
+    """The huge-P sorted-merge rank path (used for n >= 2^16 in place of
+    searchsorted's per-query binary search) produces searchsorted's exact
     indices."""
     import jax.numpy as jnp
     from gridmap_slam_tpu.ops.resample import _rank_indices

@@ -75,8 +75,10 @@ def test_particle_only_mesh():
 
 def test_graft_dryrun():
     import importlib.util
+    from pathlib import Path
     spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
+        "graft_entry",
+        Path(__file__).resolve().parent.parent / "__graft_entry__.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.dryrun_multichip(8)

@@ -69,38 +69,6 @@ def test_shared_map_memory_independent_of_particles():
     assert s2.poses.shape == (1000, 3)
 
 
-def test_step_blocked_matches_step():
-    """step_blocked (multi-dispatch workaround for the dev chip's
-    per-dispatch gather budget, docs/TPU_FAULT.md) is functionally
-    identical to step under the same key."""
-    import jax.numpy as jnp
-
-    from gridmap_slam_tpu.io import frame_at, frames_to_device
-    from gridmap_slam_tpu.io.synthetic import (SimParams, default_world,
-                                               simulate_log,
-                                               square_path_controls)
-
-    cfg = SlamConfig(num_particles=16, max_beams=64)
-    eng = SharedMapSLAM(cfg)
-    frames, _ = simulate_log(default_world(), square_path_controls(3),
-                             params=SimParams(beams_per_rev=60), seed=3)
-    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
-
-    s_ref = eng.init(jax.random.key(0))
-    s_blk = eng.init(jax.random.key(0))
-    step = jax.jit(eng.step)
-    for i in range(3):
-        f = frame_at(batch, i)
-        s_ref, info_ref = step(s_ref, f)
-        s_blk, info_blk = eng.step_blocked(s_blk, f, block=4)
-    np.testing.assert_allclose(np.asarray(s_blk.poses),
-                               np.asarray(s_ref.poses), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(s_blk.logodds),
-                               np.asarray(s_ref.logodds), atol=1e-5)
-    np.testing.assert_allclose(float(info_blk.neff), float(info_ref.neff),
-                               rtol=1e-5)
-
-
 def test_amcl_recovery_injection_detects_kidnap():
     """Mid-run kidnap: the AMCL fast/slow weight EMAs must detect the
     likelihood collapse (Neff cannot — uniformly-bad particles RAISE it)

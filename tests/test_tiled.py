@@ -185,7 +185,7 @@ def test_tiled_accumulate_weights_matches_overwrite_sum():
 
 
 def test_tiled_matmul_scoring_matches_dense():
-    """The MXU tiled scorer (zero random gathers) psums to the dense
+    """The matmul tiled scorer (zero random gathers) psums to the dense
     matcher's stage scores too — incl. the ll_outside-filled world-edge
     halo that replaces the gather path's explicit global-bounds test."""
     import math as _math

@@ -96,3 +96,28 @@ def test_metrics_logger(tmp_path):
     assert len(lines) == 3
     assert lines[0]["neff"] == 12.5 and lines[0]["scan_ms"] == 3.3
     assert lines[2]["event"] == "resample"
+
+
+@pytest.mark.parametrize("env_value", [None, "custom"])
+def test_compile_cache_dir_follows_env(env_value, monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is used and nothing overrides
+    it; unset, the cache goes to the fixed <repo>/.jax_cache."""
+    from pathlib import Path
+
+    from gridmap_slam_tpu.utils import compile_cache as cc
+
+    repo = Path(__file__).resolve().parent.parent
+    updates = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, value: updates.append((name, value)))
+    if env_value is None:
+        monkeypatch.delenv(cc.ENV_VAR, raising=False)
+        want = str(repo / ".jax_cache")
+        assert cc.enable_compile_cache() == want
+        assert updates == [("jax_compilation_cache_dir", want)]
+    else:
+        want = str(tmp_path / env_value)
+        monkeypatch.setenv(cc.ENV_VAR, want)
+        assert cc.enable_compile_cache() == want
+        assert updates == []
+    assert cc.compile_cache_dir() == want
